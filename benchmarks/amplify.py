@@ -8,8 +8,7 @@ it with MXU matmuls; peak memory is O(n).  This harness measures it at
 the frame sizes the decoder itself serves (benchmarks/frame_scale.py),
 plus the dense path where it fits for comparison.
 
-Usage (on the TPU): python benchmarks/amplify.py
-Findings fold into benchmarks/serving.md / frame-scale story.
+Usage (on the GPU): python benchmarks/amplify.py
 """
 
 from __future__ import annotations

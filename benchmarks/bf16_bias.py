@@ -4,7 +4,7 @@ f32 and bf16 runs use IDENTICAL trials (same point keys, same channel
 realizations) so the comparison is paired: the reported delta is the
 count of trials whose outcome flipped, not two independent MC estimates.
 
-Usage (on the TPU): python benchmarks/bf16_bias.py [--trials 10000]
+Usage (on the GPU): python benchmarks/bf16_bias.py [--trials 10000]
 Writes the table for PARITY.md / benchmarks/waterfall.md.
 """
 

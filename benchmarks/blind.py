@@ -1,5 +1,5 @@
 """Blind reconciliation measured: leakage / rounds / throughput vs QBER
-(round 3, VERDICT item 5).
+(round 3).
 
 Blind reconciliation (decoder/blind.py) needs no QBER estimate: it
 starts all-punctured and reveals punctured bits on failure, so leakage
@@ -10,7 +10,7 @@ cost)?  Both legs use the same mother code, the same d = p + s = 1024
 modulated positions (equal payload l = N - 1024), and the same channel
 draws.
 
-Usage (on the TPU): python benchmarks/blind.py [--trials 256]
+Usage (on the GPU): python benchmarks/blind.py [--trials 256]
 Findings: benchmarks/blind.md.
 """
 
@@ -87,7 +87,7 @@ def main():
         bt = time.perf_counter() - t0
         b_fer = 1 - km.mean()
         b_leak = float(res.leak_bits.mean())
-        b_tput = B * l / bt / 1e6
+        b_rate = B * l / bt / 1e6
 
         # --- known-QBER leg: highest-rate ladder rung with FER == 0 ----
         best = None
@@ -108,11 +108,11 @@ def main():
                 break
         if best is None:
             best = (0, d, fer, M, B * l / at / 1e6)
-        p, s, k_fer, k_leak, k_tput = best
+        p, s, k_fer, k_leak, k_rate = best
 
         print(f"{q:6.3f} | {b_fer:10.3f} {res.rounds.mean():7.2f} "
-              f"{b_leak:7.0f} {b_tput:7.1f} | ({p:>4},{s:>4}) "
-              f"{k_fer:6.3f} {k_leak:6.0f} {k_tput:7.1f} | "
+              f"{b_leak:7.0f} {b_rate:7.1f} | ({p:>4},{s:>4}) "
+              f"{k_fer:6.3f} {k_leak:6.0f} {k_rate:7.1f} | "
               f"{b_leak / k_leak:10.3f}")
 
 

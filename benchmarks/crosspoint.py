@@ -8,10 +8,10 @@ host the NEXT point's trials, so only the final point of a sweep pays a
 drain.  Statistics are bit-identical (tests/test_continuation.py).
 
 Measures, interleaved in one process: per-point continuation dispatches
-(P separate programs) vs one cross-point program, for the VERDICT
-criterion window QBER 0.0825-0.085 at 6000 trials.
+(P separate programs) vs one cross-point program, for the
+window QBER 0.0825-0.085 at 6000 trials.
 
-Usage (on the TPU): python benchmarks/crosspoint.py [--trials 6000]
+Usage (on the GPU): python benchmarks/crosspoint.py [--trials 6000]
 Findings: appended to benchmarks/waterfall.md.
 """
 
@@ -39,16 +39,15 @@ def main():
                     "(trial mesh over all local devices)")
     args = ap.parse_args()
 
-    from benchmarks.roofline import _load_flagship
+    from benchmarks._timing import load_flagship
     from qkd_ldpc_tpu.decoder.bp import DecodeOptions
     from qkd_ldpc_tpu.sim.continuation import dispatch_sweep_continuation
     from qkd_ldpc_tpu.sim.stats import PointPartials, partials_from_stacked
     from qkd_ldpc_tpu.utils import enable_compilation_cache
 
     enable_compilation_cache()
-    code = _load_flagship().to_device()
-    opts = DecodeOptions(max_iterations=100, message_dtype="bfloat16",
-                         backend="pallas")
+    code = load_flagship().to_device()
+    opts = DecodeOptions(max_iterations=100, message_dtype="bfloat16")
     qbers = [0.08, 0.0825, 0.085]
     master = jax.random.PRNGKey(777)
     keys = [jax.random.fold_in(master, i) for i in range(len(qbers))]

@@ -1,10 +1,11 @@
 """Frame-size scaling on one chip: full pipeline throughput vs N.
 
 Generated production-profile codes (column-regular dv=3, R~0.49), QBER
-0.05, sum-product bf16 + Pallas, scan-chained reps — the source of
-benchmarks/scale.md's table.
+0.05, sum-product bf16, scan-chained reps.  Rows wider than the channel
+kernel's block (channel.pallas_select.MAX_KERNEL_COLS) take the XLA
+threshold search (channel.keys.kth_threshold_impl).
 
-Usage (on the TPU): python benchmarks/frame_scale.py
+Usage (on the GPU): python benchmarks/frame_scale.py
 """
 
 from __future__ import annotations

@@ -8,14 +8,14 @@ interleaved full-program measurement):
    iteration at equal edge work, with every frame forced to run all
    ``reps`` sweeps (undecodable random syndromes).  The layered sweep
    is mb sequential layer steps of XLA-level roll/stack ops; flooding
-   is the fused Pallas kernel — layered buys its ~1.7x iteration
-   reduction only if its sweep doesn't cost ~1.7x more.
+   is one fused iteration — layered buys its ~1.7x iteration reduction
+   only if its sweep doesn't cost ~1.7x more.
 2. **End-to-end**: the bench.py sweep chunk (keygen + channel + decode
    + stats) under BOTH schedules, interleaved, plus convergence stats
    (the layered chunk should show mean sweeps ~3.5 vs flooding's ~6.8
    at QBER 0.05 — the CPU-measured ratio).
 
-Usage (on the TPU): python benchmarks/layered.py [--batch 512]
+Usage (on the GPU): python benchmarks/layered.py [--batch 512]
 Findings: benchmarks/layered.md.
 """
 
@@ -32,8 +32,6 @@ import jax.numpy as jnp
 import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-
-from benchmarks.roofline import measure_null_roundtrip, timed
 
 
 def _undecodable(code, opts, B, reps, seed):
@@ -70,21 +68,12 @@ def main():
     enable_compilation_cache()
     code = make_qc_code(z=512, nb=20, mb=10, dv=3, seed=666).to_device()
     B, reps = args.batch, args.reps
-    rt = measure_null_roundtrip()
-    print(f"device: {jax.devices()[0]}  B={B} reps={reps}  "
-          f"null-roundtrip {rt*1e3:.1f} ms", file=sys.stderr)
+    print(f"device: {jax.devices()[0]}  B={B} reps={reps}", file=sys.stderr)
 
     base = DecodeOptions(max_iterations=100, message_dtype="bfloat16")
     runs = {}
-    # "layered" resolves backend=auto -> the fused one-sweep Pallas
-    # kernel on TPU (decoder/pallas_layered, round 5); "lay-xla" pins
-    # the round-4 XLA lowering (mb sequential layer steps) so the A/B
-    # separates the schedule's sweep saving from the kernel's
-    # per-sweep saving.
     for name, o in (("flooding", base),
-                    ("layered", dataclasses.replace(base, schedule="layered")),
-                    ("lay-xla", dataclasses.replace(
-                        base, schedule="layered", backend="xla"))):
+                    ("layered", dataclasses.replace(base, schedule="layered"))):
         runs[name] = _undecodable(code, o, B, reps, seed=17)
 
     # Interleaved per-iteration timing.
@@ -93,7 +82,7 @@ def main():
         for name, (run, llr, syn) in runs.items():
             t0 = time.perf_counter()
             np.asarray(run(llr, syn))
-            dt = time.perf_counter() - t0 - rt
+            dt = time.perf_counter() - t0
             per_iter[name].append(dt / reps * 1e3)
     for name, v in per_iter.items():
         print(f"{name:9s}: {np.median(v):.3f} ms/iteration "
@@ -108,7 +97,7 @@ def main():
     from qkd_ldpc_tpu.sim.stats import STAT_KEYS
 
     n_err = num_errors_for(code.n_vars, 0.05)
-    key = jax.random.fold_in(master_key(777, "pallas"), 0)
+    key = jax.random.fold_in(master_key(777), 0)
     chunk_reps = 24
     e2e = {}
     # Layered converges in ~half the sweeps, so its compaction point is
@@ -116,14 +105,12 @@ def main():
     for name, o in (("flooding", dataclasses.replace(
                         base, compact_after=8, compact_lanes=B // 4)),
                     ("layered", dataclasses.replace(base, schedule="layered")),
-                    ("lay-xla", dataclasses.replace(
-                        base, schedule="layered", backend="xla")),
                     ("lay+cmp", dataclasses.replace(
                         base, schedule="layered",
                         compact_after=4, compact_lanes=B // 4))):
         out = bench_mod._sweep_chunk(
             code, key, jnp.asarray(n_err, jnp.int32),
-            jnp.asarray(0, jnp.int32), B, chunk_reps, o, "pallas")
+            jnp.asarray(0, jnp.int32), B, chunk_reps, o)
         v = dict(zip(STAT_KEYS, np.asarray(out).tolist()))  # warm + stats
         e2e[name] = dict(opts=o, stats=v, times=[])
         mean_it = v["sum_it"] / max(v["n_sp"], 1)
@@ -135,8 +122,8 @@ def main():
             np.asarray(bench_mod._sweep_chunk(
                 code, key, jnp.asarray(n_err, jnp.int32),
                 jnp.asarray((s + 1) * B * chunk_reps, jnp.int32),
-                B, chunk_reps, d["opts"], "pallas"))
-            d["times"].append(time.perf_counter() - t0 - rt)
+                B, chunk_reps, d["opts"]))
+            d["times"].append(time.perf_counter() - t0)
     for name, d in e2e.items():
         dt = float(np.median(d["times"]))
         fps = B * chunk_reps / dt

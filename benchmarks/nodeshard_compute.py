@@ -1,15 +1,10 @@
-"""Node-sharded per-shard compute vs the single-chip fused path (round 3).
+"""Node-sharded per-shard compute vs the single-device decoder.
 
-The round-2 scale.md comm-vs-compute model compared ICI collective
-costs against the UNFUSED node-sharded compute (inflating the
-collective-overhead ratio).  Round 3 gave the node-sharded loop the
-fused (total, Lr) carry; this harness measures its per-shard compute
-honestly: a 1-device `node` mesh on the real chip (collectives are
-self-copies) vs the single-chip fused dc-first Pallas path at EQUAL
-work, interleaved in one process.
+Measures the node-sharded loop's per-shard compute: a 1-device `node`
+mesh on the card (collectives are self-copies) vs the single-device
+dc-first decoder at EQUAL work, interleaved in one process.
 
-Usage (on the TPU): python benchmarks/nodeshard_compute.py
-Findings fold into benchmarks/scale.md.
+Usage (on the GPU): python benchmarks/nodeshard_compute.py
 """
 
 from __future__ import annotations
@@ -25,7 +20,7 @@ from jax.sharding import Mesh
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from benchmarks.roofline import _load_flagship, measure_null_roundtrip, timed
+from benchmarks._timing import load_flagship, timed
 
 
 def main():
@@ -43,7 +38,7 @@ def main():
     from qkd_ldpc_tpu.utils import enable_compilation_cache
 
     enable_compilation_cache()
-    code = _load_flagship().to_device()
+    code = load_flagship().to_device()
     B, reps = args.batch, args.reps
     N, M = code.n_vars, code.n_checks
     rng = np.random.default_rng(0)
@@ -52,15 +47,13 @@ def main():
     syn = jnp.asarray(rng.integers(0, 2, (M, B)), jnp.int8)
     llr = jnp.asarray(rng.normal(2, 1, (N, B)), jnp.float32)
     opts = dataclasses.replace(
-        DecodeOptions(message_dtype="bfloat16", backend="pallas",
-                      algorithm=args.alg),
+        DecodeOptions(message_dtype="bfloat16", algorithm=args.alg),
         max_iterations=reps,
     )
     mesh1 = Mesh(np.asarray(jax.devices()[:1]), (NODE_AXIS,))
 
-    rt = measure_null_roundtrip()
     print(f"device: {jax.devices()[0]}  {code.name}  B={B} reps={reps} "
-          f"alg={args.alg}  null rt {rt*1e3:.1f} ms")
+          f"alg={args.alg}")
 
     def single():
         return _bp_decode_jit(code, llr, syn, opts)[1]
@@ -77,7 +70,7 @@ def main():
         t_s.append(timed(single) / reps)
         t_n.append(timed(sharded) / reps)
     ts, tn = float(np.median(t_s)), float(np.median(t_n))
-    print(f"single-chip fused pallas : {ts*1e3:.3f} ms/iter")
+    print(f"single-device decoder    : {ts*1e3:.3f} ms/iter")
     print(f"node-sharded (1-dev mesh): {tn*1e3:.3f} ms/iter  "
           f"ratio {tn/ts:.2f}x")
 

@@ -1,22 +1,18 @@
-"""QC roll routing vs general gather routing, on hardware (round 3).
+"""QC roll routing vs general gather routing, on the card.
 
-The round-2 roofline (benchmarks/roofline.md) isolated the residual 42%
-of the decode iteration in the two routing permutations, which run at
-~300 GB/s because general row gathers are descriptor-bound.  A QC code
-(codes.qc) turns both into static block rolls (contiguous slice-copies).
-This harness measures, interleaved in ONE process (the shared chip
-drifts +-20%):
+A QC code (codes.qc) can route messages with static block rolls instead
+of general row gathers.  This harness measures, interleaved in ONE
+process:
 
 1. full decode iteration, unstructured flagship, gather routing
    (the round-2 operating point),
 2. full decode iteration, QC code (matched N/R/profile), gather routing
    (isolates code-structure effects from routing effects),
-3. full decode iteration, QC code, ROLL routing (the round-3 lever),
+3. full decode iteration, QC code, ROLL routing (decoder/qc_routing),
 4. end-to-end sweep-chunk throughput (keygen+channel+decode+stats) on
    the QC code, roll vs gather, at the bench.py operating point.
 
-Usage (on the TPU): python benchmarks/qc.py [--batch 512] [--z 512]
-Findings: benchmarks/qc.md.
+Usage (on the GPU): python benchmarks/qc.py [--batch 512] [--z 512]
 """
 
 from __future__ import annotations
@@ -33,7 +29,7 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from benchmarks.roofline import _load_flagship, measure_null_roundtrip, timed
+from benchmarks._timing import load_flagship, timed
 
 
 def _undecodable_iter_time(code, opts, B, reps, rng):
@@ -96,21 +92,17 @@ def main():
     B, reps, z = args.batch, args.reps, args.z
     nb, mb = 10240 // z, 5120 // z  # N=10240, M=5120, R=0.5, dc=6
 
-    flag = _load_flagship().to_device()
+    flag = load_flagship().to_device()
     qc = make_qc_code(z=z, nb=nb, mb=mb, dv=3, seed=666).to_device()
     print(f"device: {jax.devices()[0]}", file=sys.stderr)
     print(f"flagship: {flag}", file=sys.stderr)
     print(f"qc:       {qc}", file=sys.stderr)
 
     base = DecodeOptions(
-        max_iterations=100, message_dtype=args.dtype, backend="pallas",
-        algorithm=args.alg,
+        max_iterations=100, message_dtype=args.dtype, algorithm=args.alg,
     )
     o_gather = dataclasses.replace(base, routing="gather")
     o_roll = dataclasses.replace(base, routing="roll")
-
-    rt = measure_null_roundtrip()
-    print(f"null round-trip: {rt*1e3:.1f} ms (subtracted)")
 
     rng = np.random.default_rng(0)
     rows = [

@@ -1,20 +1,16 @@
-"""QC node-sharded per-shard compute vs the single-chip fused path (r4).
+"""QC node-sharded per-shard compute vs the single-device decoder.
 
-VERDICT r3 item 2's "done" metric: per-shard ms/iteration of the
-QC-structured node-sharded decoder (parallel.qc_node_sharded — block
-rolls, complement-product leave-one-out, no segment ops/logs) within
-~1.5x of the single-chip fused Pallas roll path at EQUAL per-shard
-work, vs the general node-sharded decoder's honest 4.8x (round 3,
-benchmarks/scale.md).
+Per-shard ms/iteration of the QC-structured node-sharded decoder
+(parallel.qc_node_sharded — block rolls, complement-product
+leave-one-out, no segment ops/logs) and of the general node-sharded
+decoder, against the single-device decoder at EQUAL per-shard work.
 
 Method matches benchmarks/nodeshard_compute.py: a 1-device ``node``
-mesh on the real chip (collectives are self-copies, so this isolates
-per-shard COMPUTE; the comm model is in scale.md), random high-weight
-syndromes so every frame runs all ``reps`` iterations, interleaved
-single-process timing with the null round-trip subtracted.
+mesh on the card (collectives are self-copies, so this isolates
+per-shard COMPUTE), random high-weight syndromes so every frame runs
+all ``reps`` iterations, interleaved single-process timing.
 
-Usage (on the TPU): python benchmarks/qc_nodeshard_compute.py
-Findings fold into benchmarks/scale.md.
+Usage (on the GPU): python benchmarks/qc_nodeshard_compute.py
 """
 
 from __future__ import annotations
@@ -30,7 +26,7 @@ from jax.sharding import Mesh
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from benchmarks.roofline import measure_null_roundtrip, timed
+from benchmarks._timing import timed
 
 
 def main():
@@ -67,15 +63,13 @@ def main():
     syn = jnp.asarray(rng.integers(0, 2, (M, B)), jnp.int8)
     llr = jnp.asarray(rng.normal(2, 1, (N, B)), jnp.float32)
     opts = dataclasses.replace(
-        DecodeOptions(message_dtype="bfloat16", backend="pallas",
-                      algorithm=args.alg),
+        DecodeOptions(message_dtype="bfloat16", algorithm=args.alg),
         max_iterations=reps,
     )
     mesh1 = Mesh(np.asarray(jax.devices()[:1]), (NODE_AXIS,))
 
-    rt = measure_null_roundtrip()
     print(f"device: {jax.devices()[0]}  {code.name}  B={B} reps={reps} "
-          f"alg={args.alg}  null rt {rt*1e3:.1f} ms")
+          f"alg={args.alg}")
 
     def single():
         return _bp_decode_jit(code, llr, syn, opts)[1]
@@ -90,7 +84,7 @@ def main():
             code, llr, syn.astype(jnp.int32), opts, mesh1
         )[1]
 
-    opts_lay = dataclasses.replace(opts, schedule="layered", backend="auto")
+    opts_lay = dataclasses.replace(opts, schedule="layered")
 
     def single_layered():
         return _bp_decode_jit(code, llr, syn, opts_lay)[1]
@@ -100,12 +94,12 @@ def main():
             code, llr, syn.astype(jnp.int32), opts_lay, mesh1
         )[1]
 
-    legs = {"single-chip fused pallas": single,
+    legs = {"single-device decoder": single,
             "QC node-sharded (1-dev)": qc_sharded,
             # Round 5: the layered x node-sharded composition's per-shard
             # sweep cost (one sweep = mb serial layers = one flooding
             # iteration's edge work; ~half the sweeps to converge).
-            "single-chip layered (XLA)": single_layered,
+            "single-device layered": single_layered,
             "QC node-sharded layered": qc_sharded_layered}
     if not args.skip_general:
         legs["general node-sharded"] = gen_sharded
@@ -115,10 +109,10 @@ def main():
         print(f"compiled {name}", file=sys.stderr, flush=True)
 
     times = {name: [] for name in legs}
-    for _ in range(3):  # interleave legs (shared chip drifts +-20%)
+    for _ in range(3):  # interleave legs
         for name, fn in legs.items():
             times[name].append(timed(fn) / reps)
-    base = float(np.median(times["single-chip fused pallas"]))
+    base = float(np.median(times["single-device decoder"]))
     for name in legs:
         t = float(np.median(times[name]))
         print(f"{name:>26}: {t*1e3:.3f} ms/iter  ratio {t/base:.2f}x")

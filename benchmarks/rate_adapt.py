@@ -5,7 +5,7 @@ puncturing/shortening settings (d = p + s fixed at 1024 where adapted),
 500 trials/point.  Shows the production story: a single code covers the
 channel range that the reference needs its whole rate table of codes for.
 
-Usage (on the TPU): python benchmarks/rate_adapt.py
+Usage (on the GPU): python benchmarks/rate_adapt.py
 """
 
 from __future__ import annotations

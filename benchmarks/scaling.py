@@ -4,13 +4,13 @@ Runs the SAME global sweep (fixed total trials) under 1, 2, and 4
 coordinated jax.distributed processes on localhost, all forming an
 8-device global ``trial`` mesh, and reports wall-clock per configuration.
 
-Caveat (stated in scaling.md): every process shares one host's cores, so
+Caveat: every process shares one host's cores, so
 absolute wall-clock does NOT demonstrate speedup — what this measures is
 the *overhead* of process decomposition (gloo coordination, per-process
 dispatch, make_array_from_callback shard construction) at fixed global
-device count.  On real multi-host TPU the devices are disjoint, the
-compute scales by construction (trials are embarrassingly parallel), and
-the communication is the analytic budget in scaling.md.
+device count.  On real separate devices the compute scales by
+construction (trials are embarrassingly parallel) and the communication
+is one all-reduce of seven scalars per chunk.
 
 Usage: python benchmarks/scaling.py
 """

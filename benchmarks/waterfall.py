@@ -5,7 +5,7 @@ decoding threshold, interleaved in one process (the shared chip drifts),
 and asserts the two runners produce BIT-IDENTICAL statistics on every
 point.  Results are written up in benchmarks/waterfall.md.
 
-Usage (on the TPU): python benchmarks/waterfall.py [--trials 2000]
+Usage (on the GPU): python benchmarks/waterfall.py [--trials 2000]
 """
 
 from __future__ import annotations

@@ -5,8 +5,7 @@ against Alice's directly — an oracle only a simulation has
 (src/qkd_ldpc_algorithm.cpp:382).  This example walks what a deployed
 pair of nodes actually runs, over the round-3 quasi-cyclic code family:
 
-1. both sides agree on a QC mother code (girth >= 6; decoded with
-   roll routing on TPU),
+1. both sides agree on a QC mother code (girth >= 6),
 2. Alice transmits syndromes + verification tags over the classical
    channel,
 3. Bob runs `reconcile_secure`: decode -> tag comparison -> privacy

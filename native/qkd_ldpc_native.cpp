@@ -3,9 +3,9 @@
 // The reference implements its entire ingest layer in C++ — the alist
 // parser (`read_sparse_alist_matrix`, src/array_and_matrix_operations.cpp:
 // 109-292) and the adjacency builders (`get_bit_nodes`/`get_check_nodes`,
-// :4-47).  This is the TPU framework's native equivalent: it parses alist
+// :4-47).  This is the framework's native equivalent: it parses alist
 // files and builds the padded index tensors + permutation routing maps the
-// TPU decoder consumes (LDPCCode: chk_adj/chk_mask/var_adj/var_mask/
+// decoder consumes (LDPCCode: chk_adj/chk_mask/var_adj/var_mask/
 // var_slot/chk_slot/var_deg/chk_deg — see qkd_ldpc_tpu/codes/ldpc_code.py)
 // in a single O(E) pass, exposed through a plain C ABI for ctypes.
 //

@@ -1,6 +1,6 @@
-"""qkd_ldpc_tpu — TPU-native QKD LDPC error-reconciliation framework.
+"""qkd_ldpc_tpu — QKD LDPC error-reconciliation framework on JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capability surface of the
+A from-scratch JAX/XLA re-design of the capability surface of the
 C++ reference simulator ColdCloudd/QKD_LDPC (see SURVEY.md):
 
 - parity-check-matrix ingest (alist + dense formats)  -> `qkd_ldpc_tpu.codes`
@@ -8,12 +8,13 @@ C++ reference simulator ColdCloudd/QKD_LDPC (see SURVEY.md):
   `native/qkd_ldpc_native.cpp`)
 - key generation + exact-weight binary channel        -> `qkd_ldpc_tpu.channel`
 - syndrome-target sum-product / min-sum BP decoding   -> `qkd_ldpc_tpu.decoder`
-  (Pallas TPU check-update kernel in `qkd_ldpc_tpu.decoder.pallas_kernels`)
+  (plain jax.numpy fused by XLA; the channel's k-th-smallest threshold is
+  a Pallas-Triton kernel on the GPU, `qkd_ldpc_tpu.channel.pallas_select`)
 - mesh / sharded sweeps / node-sharded decoding       -> `qkd_ldpc_tpu.parallel`
 - QBER sweep planning, stats, CSV, checkpointing,
   interactive mode, console tracing                   -> `qkd_ldpc_tpu.sim`
 - production serving endpoint (Alice/Bob roles)       -> `qkd_ldpc_tpu.serve`
-- verification + privacy amplification (Toeplitz/MXU) -> `qkd_ldpc_tpu.postprocess`
+- verification + privacy amplification (Toeplitz)     -> `qkd_ldpc_tpu.postprocess`
 
 Unlike the reference (one process, a CPU thread pool over trials,
 scalar C++ loops over graph edges), everything here is expressed as pure

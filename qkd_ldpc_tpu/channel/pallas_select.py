@@ -1,19 +1,24 @@
-"""Pallas TPU kernel for the channel's exact k-th-smallest threshold.
+"""Pallas-Triton kernel for the channel's exact k-th-smallest threshold.
 
 The exact-weight channel (channel.keys) finds the k-th smallest of each
 row of i.i.d. uint32 scores with a 32-pass bitwise prefix search.  As
-XLA ops the loop re-streams the [B, N] score tensor from HBM on every
-pass (~32 x 21 MB for the flagship shape — ~1 ms, a quarter of the
-whole end-to-end trial cost).  This kernel loads each [bb, N] row block
-into VMEM ONCE and runs all 32 passes in-register, so the scores cross
-HBM exactly once.
+XLA ops every pass re-reads the whole [B, N] score block from device
+memory.  This kernel gives each row to one program, loads the row into
+registers ONCE and runs all 32 passes on chip, so the scores cross
+device memory exactly once.
 
-Exactness: the same integer algorithm bit-for-bit (uint32 order is
-preserved through the sign-flip trick so compares run as int32, which
-Mosaic handles natively).  The tie-completion logic stays in XLA
+Exactness: the same integer algorithm bit-for-bit.  uint32 order is
+kept through the sign-flip trick (``u ^ 0x80000000`` compared as int32),
+and columns past N (the row is padded to a power of two, as Triton
+blocks must be) read as the maximal value, which never changes the k-th
+smallest for k <= N.  The tie-completion logic stays in XLA
 (channel.keys._exact_weight_mask) and consumes this threshold
-identically, so flip masks are bit-identical to the XLA path
-(tests/test_channel.py::test_pallas_threshold_matches_xla).
+identically, so flip masks are bit-identical to the XLA search
+(tests/test_channel.py).
+
+Rows wider than ``MAX_KERNEL_COLS`` (the 65k/262k frames of
+benchmarks/frame_scale.py) do not fit one program's registers; the
+dispatch in channel.keys sends them to the XLA search.
 """
 
 from __future__ import annotations
@@ -23,81 +28,72 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 _SIGN = -0x80000000  # 0x80000000 as an int32 literal (sign-flip bit)
+_FLIPPED_MAX = 0x7FFFFFFF  # 0xFFFFFFFF after the sign flip
+
+# Widest row one program holds in registers (padded to a power of two).
+MAX_KERNEL_COLS = 32768
 
 
-def fits_vmem(n_cols: int) -> bool:
-    """True when a score row (padded to lanes) fits the kernel's VMEM
-    budget at the minimum 8-row block (~12 bytes/element live)."""
-    n_pad = (-n_cols) % 128
-    return 8 * (n_cols + n_pad) * 12 <= (12 << 20)
+def fits_kernel(n_cols: int) -> bool:
+    """True when one score row fits the kernel's single-program block."""
+    return 0 < n_cols <= MAX_KERNEL_COLS
 
 
-def _kth_kernel(k_ref, scores_ref, out_ref):
-    """One [bb, N] block: 32-pass bitwise prefix search, all in VMEM.
+def _kth_kernel(k_ref, s_ref, o_ref, *, n: int, n_pad: int):
+    """One row: 32-pass bitwise prefix search over register-resident scores.
 
-    scores arrive as int32 bits of (u32 ^ 0x80000000), so signed order
-    == the original unsigned order.
+    ``s_ref`` holds int32 bits of (u32 ^ 0x80000000), so signed order ==
+    the original unsigned order; ``prefix``/``test`` carry the RAW u32
+    bit pattern, and only the comparison runs in sign-flipped space.
     """
-    k = k_ref[0]
-    s = scores_ref[...]  # sign-flipped int32: signed order == u32 order
-    bb = s.shape[0]
+    cols = jax.lax.broadcasted_iota(jnp.int32, (n_pad,), 0)
+    s = plgpu.load(s_ref, mask=cols < n, other=_FLIPPED_MAX)
+    s = jnp.where(cols < n, s, _FLIPPED_MAX)
+    k = k_ref[...]  # [1]
 
     def step(j, prefix):
-        # prefix/test carry the RAW u32 bit pattern (as int32 bits); only
-        # the comparison happens in sign-flipped space.
-        test = prefix | jax.lax.shift_left(
-            jnp.int32(1), jnp.int32(31 - j)
-        )
-        cnt = jnp.sum(
-            (s < (test ^ _SIGN)).astype(jnp.int32), axis=1, keepdims=True
-        )
+        test = prefix | jax.lax.shift_left(jnp.int32(1), 31 - j)
+        cnt = jnp.sum((s < (test ^ _SIGN)).astype(jnp.int32))
         return jnp.where(cnt >= k, prefix, test)
 
-    prefix = jax.lax.fori_loop(
-        0, 32, step, jnp.zeros((bb, 1), jnp.int32)
-    )
-    out_ref[...] = prefix
+    o_ref[...] = jax.lax.fori_loop(0, 32, step, jnp.zeros((1,), jnp.int32))
 
 
-@partial(jax.jit, static_argnames=("block_b", "interpret"))
-def kth_smallest_pallas(
+@partial(jax.jit, static_argnames=("interpret",))
+def kth_smallest_kernel(
     scores: jax.Array,  # [B, N] uint32
-    k: jax.Array,  # scalar int32 (traced)
-    block_b: int = 256,
+    k: jax.Array,  # scalar or [B] int32 (traced)
     interpret: bool = False,
 ) -> jax.Array:
-    """k-th smallest per row of uint32 scores -> [B, 1] uint32.
-
-    N is padded to a lane multiple with the maximal value (appending
-    maximal elements never changes the k-th smallest for k <= N).
-    """
+    """k-th smallest per row of uint32 scores -> [B, 1] uint32."""
     B, N = scores.shape
-    n_pad = (-N) % 128
-    flipped = (scores ^ jnp.uint32(0x80000000)).astype(jnp.int32)
-    if n_pad:
-        flipped = jnp.pad(flipped, ((0, 0), (0, n_pad)),
-                          constant_values=0x7FFFFFFF)
-    Np = N + n_pad
-    # VMEM budget: the row block plus ~2 row-sized live temporaries per
-    # pass (compare mask + reduce; empirical: Np=262144 at bb=8 OOMed at
-    # 23.84 MB = ~12 B/element).  Callers gate on fits_vmem() and fall
-    # back to the XLA search for rows too large for even bb=8.
-    bb = min(block_b, B, max(8, (14 << 20) // (Np * 12) // 8 * 8))
+    if not fits_kernel(N):
+        raise ValueError(
+            f"row of {N} scores exceeds the kernel's {MAX_KERNEL_COLS} columns"
+        )
+    n_pad = max(16, pl.next_power_of_2(N))
+    flipped = jax.lax.bitcast_convert_type(
+        scores ^ jnp.uint32(0x80000000), jnp.int32
+    )
+    k_rows = jnp.broadcast_to(jnp.asarray(k, jnp.int32), (B,))
     out = pl.pallas_call(
-        _kth_kernel,
-        out_shape=jax.ShapeDtypeStruct((B, 1), jnp.int32),
-        grid=(pl.cdiv(B, bb),),
+        partial(_kth_kernel, n=N, n_pad=n_pad),
+        out_shape=jax.ShapeDtypeStruct((B,), jnp.int32),
+        grid=(B,),
         in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec((bb, Np), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
+            pl.BlockSpec((1,), lambda i: (i,)),
+            pl.BlockSpec((None, n_pad), lambda i: (i, 0)),
         ],
-        out_specs=pl.BlockSpec((bb, 1), lambda i: (i, 0),
-                               memory_space=pltpu.VMEM),
+        out_specs=pl.BlockSpec((1,), lambda i: (i,)),
+        compiler_params=plgpu.CompilerParams(
+            num_warps=min(16, max(4, n_pad // 2048)), num_stages=1
+        ),
+        backend="triton",
         interpret=interpret,
-    )(jnp.asarray(k, jnp.int32)[None], flipped)
+        name="kth_smallest",
+    )(k_rows, flipped)
     # The kernel's prefix is already the raw u32 bit pattern.
-    return jax.lax.bitcast_convert_type(out, jnp.uint32)
+    return jax.lax.bitcast_convert_type(out, jnp.uint32)[:, None]

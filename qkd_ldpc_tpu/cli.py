@@ -28,9 +28,13 @@ def _default_matrix_dir(cfg, base: Path) -> Path:
 
 
 def main(argv: list[str] | None = None) -> int:
+    # allow_abbrev=False: with prefix matching on, the top-level parser
+    # claims `generate --n ...` as an ambiguous abbreviation of its own
+    # --no-progress / --num-processes before the subcommand sees it.
     parser = argparse.ArgumentParser(
         prog="qkd_ldpc_tpu",
-        description="TPU-native QKD LDPC error-reconciliation simulator",
+        description="QKD LDPC error-reconciliation simulator",
+        allow_abbrev=False,
     )
     sub = parser.add_subparsers(dest="command")
 
@@ -147,8 +151,8 @@ def main(argv: list[str] | None = None) -> int:
 
             profile_ctx = contextlib.nullcontext()
             if args.profile:
-                # Device-level tracing is the TPU-native counterpart of the
-                # reference's (absent) profiler hooks — SURVEY.md §5.
+                # Device-level tracing stands in for the reference's
+                # (absent) profiler hooks — SURVEY.md §5.
                 import jax
 
                 profile_ctx = jax.profiler.trace(args.profile)

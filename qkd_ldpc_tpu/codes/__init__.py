@@ -1,6 +1,6 @@
 """Code ingest: alist/dense parity-check-matrix parsers, code generator.
 
-TPU-native replacement for the reference's ``array_and_matrix_operations``
+Replacement for the reference's ``array_and_matrix_operations``
 ingest layer (``src/array_and_matrix_operations.cpp:109-421``).
 """
 

@@ -149,9 +149,9 @@ def qc_sidecar_path(path: str | Path) -> Path:
 def _attach_qc_sidecar(code: LDPCCode, path: Path) -> LDPCCode:
     """Reattach (and verify) the QC layout from a sidecar, if present.
 
-    The decoder's fastest operating point is roll routing, which exists
-    only when ``code.qc`` is populated (decoder/bp.py:242-247); without
-    this, a generated QC code silently reloads 1.4x slower.  The sidecar
+    Roll routing exists only when ``code.qc`` is populated (decoder/bp.py,
+    decoder/qc_routing); without this, a generated QC code
+    would silently reload without its QC layout.  The sidecar
     stores only the base matrix cells (z + {(row, col): shift}); the full
     static layout is rebuilt by the same function construction uses, and
     the lifted adjacency it implies is checked cell-by-cell against the

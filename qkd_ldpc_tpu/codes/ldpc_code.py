@@ -1,9 +1,9 @@
-"""LDPC code representation for TPU decoding.
+"""LDPC code representation for batched device decoding.
 
 The reference keeps the parity-check matrix H as ragged C arrays of
 per-node neighbor lists (``H_matrix``, reference
 ``src/array_and_matrix_operations.hpp:16-27``) and walks them with scalar
-cursor loops.  On TPU the same bipartite graph is encoded as **dense padded
+cursor loops.  Here the same bipartite graph is encoded as **dense padded
 index tensors plus masks** — one layout for regular *and* irregular codes
 (the reference's "regular" layout generalized with masks, so there is a
 single decode path instead of the reference's duplicated

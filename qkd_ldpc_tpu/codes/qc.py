@@ -2,18 +2,17 @@
 
 The reference ships unstructured random codes and walks their adjacency
 with scalar cursor loops (``src/qkd_ldpc_algorithm.cpp:56-72``), so code
-structure buys it nothing.  On TPU, structure is the last identified
-performance lever (benchmarks/roofline.md): the decode loop's two
-message-routing permutations run at ~300 GB/s because a general row
-gather is descriptor-bound, while plain HBM streaming runs at ~700 GB/s.
+structure buys it nothing.  Here structure lets the decode loop's two
+message-routing permutations be written as static block-rolls instead
+of general row gathers (``DecodeOptions.routing="roll"``;
+decoder/qc_routing).
 
 A QC-LDPC code is a ``[mb, nb]`` base matrix lifted by circulant
 permutation matrices of size ``z``: base cell (i, j) with shift ``s``
 connects check block i to variable block j with the permutation
 ``r -> (r + s) mod z``.  Both routing directions then become **static
 block-rolls**: pick a contiguous ``[z, B]`` slab, rotate its rows by a
-compile-time shift — two contiguous slice-copies, no descriptors
-(``decoder.qc_routing``).  QC codes are also what deployed QKD/5G/WiFi
+compile-time shift (``decoder.qc_routing``).  QC codes are also what deployed QKD/5G/WiFi
 LDPC systems actually use, for the same reason (hardware-friendly
 routing).
 

@@ -2,7 +2,7 @@
 
 JSON-compatible with the reference simulator's ``config.json`` schema
 (key names and validation semantics mirror ``src/config.cpp:4-115`` of the
-reference), extended with TPU-native knobs (batch size, decoder algorithm,
+reference), extended with device-side knobs (batch size, decoder algorithm,
 dtype, checkpointing).  Unlike the reference's global mutable ``CFG``
 (``src/config.hpp:65``), configuration here is an immutable dataclass passed
 explicitly; decoder knobs become static arguments of jitted functions.
@@ -78,7 +78,7 @@ class Config:
     sum_product_msg_llr_threshold: float = 100.0
     r_qber_parameters: tuple[RQBERParams, ...] = ()
 
-    # --- TPU-native extensions --------------------------------------------
+    # --- extensions over the reference ------------------------------------
     decoder: str = "sum-product"  # "sum-product" | "min-sum"
     min_sum_alpha: float = 0.8  # normalization factor for min-sum
     min_sum_beta: float = 0.0  # offset min-sum (0 disables)
@@ -96,18 +96,6 @@ class Config:
     # sweep to the default device.
     use_mesh: bool = True
     dtype: str = "float32"  # message dtype on device
-    backend: str = "auto"  # check-update kernel: "auto" | "xla" | "pallas"
-    # Trial PRNG implementation (channel.keys determinism contract):
-    # "threefry" (default) is the reference-parity mode — bit-for-bit
-    # reproducible across platforms, runs, batch sizes and meshes.
-    # "pallas" keeps the threefry key-derivation TREE (per-point,
-    # per-trial fold_in) but generates each trial's bit blocks with the
-    # TPU hardware PRNG seeded per trial (channel.pallas_prng) — much
-    # cheaper keygen, chunk/shard invariance preserved; deterministic
-    # for a fixed (seed, platform, XLA version) but NOT portable across
-    # platforms or compiler versions.  Contract v2; statistical parity
-    # measured in benchmarks/prng.md.  Off-TPU it falls back to v1.
-    prng: str = "threefry"  # "threefry" | "pallas"
     # Decode-loop residency compaction (DecodeOptions.compact_*): after
     # this many iterations the unconverged minority of each batch is
     # gathered into batch/4 lanes and finished there (bit-identical
@@ -152,10 +140,6 @@ class Config:
             )
         if self.dtype not in ("float32", "bfloat16", "int8"):
             raise ValueError(f"Unsupported message dtype: {self.dtype!r}")
-        if self.backend not in ("auto", "xla", "pallas"):
-            raise ValueError(f"Unsupported decoder backend: {self.backend!r}")
-        if self.prng not in ("threefry", "pallas"):
-            raise ValueError(f"Unsupported prng implementation: {self.prng!r}")
         if self.compact_after < 0:
             raise ValueError("compact_after must be >= 0 (0 = off)")
         if self.schedule not in ("flooding", "layered"):
@@ -190,10 +174,32 @@ def _params_from_json(params: Sequence[dict[str, Any]]) -> tuple[RQBERParams, ..
     )
 
 
+def _reject_removed_keys(raw: dict[str, Any]) -> None:
+    """Configs written for the removed Pallas kernels must fail loudly: the
+    check-update kernel ("backend": "pallas") and the hardware-PRNG
+    stream ("prng": "pallas") no longer exist, and silently running the
+    XLA decoder or the threefry stream instead would mislabel results.
+    "backend": "auto" / "xla" and "prng": "threefry" name what always
+    runs now and are accepted."""
+    backend = str(raw.get("backend", "xla"))
+    if backend not in ("auto", "xla"):
+        raise ValueError(
+            f"Unsupported decoder backend: {backend!r} (the 'pallas' "
+            "check-update kernels were removed; the decoder is plain XLA)"
+        )
+    prng = str(raw.get("prng", "threefry"))
+    if prng != "threefry":
+        raise ValueError(
+            f"Unsupported prng implementation: {prng!r} (the hardware-PRNG "
+            "stream was removed; only 'threefry' exists)"
+        )
+
+
 def config_from_dict(raw: dict[str, Any]) -> Config:
     """Build a :class:`Config` from a reference-schema JSON dict."""
     if not raw:
         raise ValueError("Configuration is empty")
+    _reject_removed_keys(raw)
 
     # Seed fallback to wall-clock time mirrors reference config.cpp:39-46.
     if raw.get("use_config_simulation_seed", True):
@@ -228,8 +234,6 @@ def config_from_dict(raw: dict[str, Any]) -> Config:
         continuation_qber=float(raw.get("continuation_qber", 0.0)),
         use_mesh=bool(raw.get("use_mesh", True)),
         dtype=str(raw.get("dtype", "float32")),
-        backend=str(raw.get("backend", "auto")),
-        prng=str(raw.get("prng", "threefry")),
         compact_after=int(raw.get("compact_after", 0)),
         schedule=str(raw.get("schedule", "flooding")),
         checkpoint_dir=str(raw.get("checkpoint_dir", "")),

@@ -1,6 +1,6 @@
 """Syndrome-target BP decoding: sum-product + normalized min-sum.
 
-TPU-native replacement for the reference decoder core
+Batched device replacement for the reference decoder core
 (``src/qkd_ldpc_algorithm.cpp``).
 """
 

@@ -13,8 +13,8 @@ flooding at equal FER (Hocevar, "A reduced complexity decoder
 architecture via layered decoding of LDPC codes", SIPS 2004 — standard
 hardware-LDPC practice).
 
-The QC structure makes layers TPU-native: one layer = one base row of
-the lift = z independent lifted checks.  Per layer and per base cell
+The QC structure makes layers dense tensor work: one layer = one base
+row of the lift = z independent lifted checks.  Per layer and per base cell
 (i, j, shift s):
 
     Lq  = clip(roll(t[j], s) - Lr_cell)            # bit -> check
@@ -22,10 +22,9 @@ the lift = z independent lifted checks.  Per layer and per base cell
     t[j] += roll^-1(Lr' - Lr_cell)                 # immediate update
 
 Every routing step is a static circulant block-roll (the same
-contiguous-slice primitive as decoder/qc_routing — no gather
-descriptors), the leave-one-out runs over the row's <= dc_max slots
+primitive as decoder/qc_routing), the leave-one-out runs over the row's <= dc_max slots
 (reusing the flooding check-update rules on [d, z, B] stacks), and the
-per-layer tensors are [z, B] slabs — MXU/VPU-sized at production z.
+per-layer tensors are [z, B] slabs.
 
 Semantics:
 
@@ -103,16 +102,6 @@ def layered_decode_batch_last(
             "schedule='layered' requires a QC code (codes.qc; generate "
             "with make_qc_code or cli generate --qc)"
         )
-    if opts.resolve_backend() == "pallas":
-        # Fused one-sweep-per-program kernel (decoder/pallas_layered):
-        # bit-identical to the loop below; returns None when the config
-        # cannot be served (z not a multiple of 128 on hardware, or the
-        # resident state exceeds the VMEM budget) and we fall through.
-        from qkd_ldpc_tpu.decoder.pallas_layered import try_layered_pallas
-
-        res = try_layered_pallas(code, llr, syndrome, opts)
-        if res is not None:
-            return res
     z, nb, mb, rows = _row_tables(code.qc)
     ncells = sum(len(r) for r in rows)
     B = llr.shape[1]
@@ -185,7 +174,9 @@ def layered_decode_batch_last(
                 Lr_new_q = to_storage(clip_msgs(Lr_new))
                 for k, (ci, j, s) in enumerate(row):
                     delta = from_storage(Lr_new_q[k]) - from_storage(Lr[ci])
-                    t = t.at[j].add(_rot(delta, (z - s) % z) * act_f[None, :])
+                    t = t.at[j].add(
+                        _rot(delta, (z - s) % z) * act_f[None, :]
+                    )
                     Lr = Lr.at[ci].set(
                         jnp.where(act_f[None, :] > 0, Lr_new_q[k], Lr[ci])
                     )

@@ -2,10 +2,10 @@
 
 An independent, vectorized re-implementation of the tanh-rule equations the
 reference evaluates in double precision (``src/qkd_ldpc_algorithm.cpp:
-40-158``), used as a known-good oracle for the f32 TPU decoder and as the
+40-158``), used as a known-good oracle for the f32 device decoder and as the
 backing engine for hierarchical console traces (the reference's
 ``TRACE_SUM_PRODUCT`` / ``TRACE_QKD_LDPC`` / ``TRACE_SUM_PRODUCT_LLR``
-flags print from inside the hot loop; on TPU, tracing must stay out of the
+flags print from inside the hot loop; here, tracing must stay out of the
 compiled path, so trace runs use this host decoder instead).
 
 It uses the same leave-one-out-by-division form as the reference

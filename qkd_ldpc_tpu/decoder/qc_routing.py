@@ -1,59 +1,36 @@
 """Roll-based message routing for quasi-cyclic codes.
 
 The decode loop's two routing permutations (check-major gather of the
-totals, variable-major gather of the check messages — the TPU-native
+totals, variable-major gather of the check messages — the device-side
 replacement for the reference's cursor scatters,
 ``src/qkd_ldpc_algorithm.cpp:56-72,128-139``) are general row gathers
-for an unstructured code: ~300 GB/s on TPU because each row is a
-descriptor (benchmarks/roofline.md).  For a QC code (codes.qc) every
-routed row lives in a contiguous ``[z, B]`` circulant slab at a static
-offset with a static rotation, so both directions compile to pure
-contiguous slice-copies — no gather descriptors at all — and stream at
-HBM copy bandwidth.
+for an unstructured code.  For a QC code (codes.qc) every routed row
+lives in a contiguous ``[z, B]`` circulant slab at a static offset with
+a static rotation, so both directions can instead be written as static
+block-rolls.
 
 Bit-exactness: rolls are permutations of exactly the rows the gather
 path reads, assembled into identically-shaped tensors and consumed by
 identical arithmetic, so the decode trajectory is bit-identical to the
 gather path on the same code (tests/test_qc.py asserts decisions and
-iteration counts for both algorithms and all message dtypes).
+iteration counts for both algorithms and all message dtypes).  Rolls
+run only where asked for (``DecodeOptions.routing="roll"``, and the
+layered schedule): on the H100 the gathers time faster at the z=512
+flagship (CHANGES.md), so ``routing="auto"`` gathers.
 """
 
 from __future__ import annotations
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 
-
-# Lowering of the roll permutation: "auto" picks by jax.default_backend()
-# AT TRACE TIME; "slices" / "take" force one variant (tests).  Trace-time
-# constraint, documented: a program traced on CPU and exported for TPU
-# keeps the gather variant — results are identical either way (the two
-# lowerings are the same permutation, asserted by
-# tests/test_qc.py::test_rot_lowerings_agree), only the TPU-side speed
-# differs, and every production TPU path traces on the TPU backend.
-_ROT_LOWERING = "auto"  # "auto" | "slices" | "take"
-
-
 def _rot(block, s: int):
-    """[z, B] slab rotated so row r reads input row (r + s) mod z.
-
-    Two lowerings of the SAME permutation: contiguous slice-copies on
-    TPU (the descriptor-free fast path this module exists for), a
-    static-index gather elsewhere — XLA:CPU's codegen for the heavily
-    repeated concat-of-slices pattern segfaulted nondeterministically
-    (observed four times across long test runs; the gather lowering is
-    the same op class CPU tests exercise everywhere else).  Identical
-    results either way, so the CPU bit-identity tests validate the
-    routing math and the TPU parity sweeps validate the slice lowering.
-    """
+    """[z, B] slab rotated so row r reads input row (r + s) mod z, as a
+    static-index gather of the permutation.  (Slice-copies time slower on
+    the H100, CHANGES.md, and XLA:CPU's codegen for the repeated
+    concat-of-slices pattern crashed in long test runs.)"""
     if s == 0:
         return block
-    mode = _ROT_LOWERING
-    if mode == "auto":
-        mode = "slices" if jax.default_backend() == "tpu" else "take"
-    if mode == "slices":
-        return jnp.concatenate([block[s:], block[:s]], axis=0)
     z = block.shape[0]
     idx = np.concatenate([np.arange(s, z), np.arange(s)])
     return jnp.take(block, jnp.asarray(idx), axis=0)
@@ -72,13 +49,8 @@ def qc_gather_chk(x, qc, dc: int, B: int):
     xb = x.reshape(nb, z, B)
     zeros = None
     slabs = []
-    # Per-slot concat + stack, NOT one flat concatenate: the flat form
-    # wins an isolated microbenchmark (0.050 vs 0.073 ms — single output
-    # buffer) but LOSES 14% end-to-end in the real decode program
-    # (interleaved A/B, 457 vs 401 Minfo-bits/s) — the stacked form
-    # fuses better with the syndrome/kernel consumers.  Fusion context
-    # beats isolated op speed; measure any change to this shape in the
-    # full program.
+    # Per-slot concat + stack (one [M, B] slab per slot), the same
+    # [dc, M, B] layout the gather path produces.
     for j in range(dc):
         per_i = []
         for (col, s) in chk_plan[j]:

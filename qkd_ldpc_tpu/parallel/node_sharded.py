@@ -1,11 +1,11 @@
-"""Intra-frame node-sharded BP decoding: one frame split across chips.
+"""Intra-frame node-sharded BP decoding: one frame split across devices.
 
 The reference decodes each frame on a single CPU thread — there is no
 intra-frame parallelism at all (SURVEY.md §2 "Parallelism strategies").
-This module adds the TPU-native axis the reference lacks: the **variable
-nodes of one frame are partitioned into contiguous blocks across the
-``node`` mesh axis**, so frames far larger than one chip's HBM (or latency
-targets tighter than one chip's decode) scale over ICI.
+This module adds the axis the reference lacks: the **variable nodes of
+one frame are partitioned into contiguous blocks across the ``node``
+mesh axis**, so frames far larger than one device's memory (or latency
+targets tighter than one device's decode) scale over the interconnect.
 
 Design (the sharding recipe, scaling-book style):
 
@@ -14,9 +14,9 @@ Design (the sharding recipe, scaling-book style):
   ``Lr[Nl, dv_max, B]``, totals, hard decisions.  There is no
   check-major message tensor at all.  The loop carries ``(total, Lr)``
   and recomputes ``Lq = clip(total - Lr)`` in-register (round 3) — the
-  same fused-update treatment the single-chip kernel uses
-  (decoder.pallas_kernels), so the bit-to-check messages never
-  round-trip through HBM *and* the storage-dtype rounding points
+  same fused-update treatment the single-device loop uses
+  (decoder.bp), so the bit-to-check messages are never stored *and*
+  the storage-dtype rounding points
   (totals and Lr round through ``message_dtype``; Lq never does) are
   exactly the single-chip loop's.
 - A check node's update needs a product over *all* its incident edges,
@@ -34,11 +34,11 @@ Design (the sharding recipe, scaling-book style):
   ``all_gather`` over ``node`` collects all shards' candidates, and the
   global (min1, first-slot, min2) merge is then shard-local.  Because
   min and integer sign-counts are exactly associative, node-sharded
-  min-sum is bit-identical to the single-chip kernel on any mesh.
+  min-sum is bit-identical to the single-device decoder on any mesh.
 - Communication per iteration: exactly two collectives of ``[M, B]``-row
   tensors (one fused stack for the check update — a ``psum`` for
   sum-product, an ``all_gather`` for min-sum — and one int parity
-  ``psum`` for the decision syndrome) riding ICI.  Everything else is
+  ``psum`` for the decision syndrome).  Everything else is
   shard-local.
 
 Composes with trial-grid data parallelism: on a 2-D ``(trial, node)``

@@ -2,11 +2,9 @@
 
 The general node-sharded decoder (:mod:`parallel.node_sharded`) pays for
 its generality: arbitrary adjacency forces variable-major segment-sums
-and row gathers (descriptor-bound on TPU — benchmarks/roofline.md) and,
-worse, the cross-shard check product forces a log/exp formulation.  Its
-per-shard compute measured 4.8x the single-chip fused path at equal
-work (benchmarks/scale.md round 3).  This module is the QC-structured
-variant that round 3 specified but did not build: for a quasi-cyclic
+and row gathers and, worse, the cross-shard check product forces a
+log/exp formulation.  This module is the QC-structured variant: for a
+quasi-cyclic
 code (codes.qc) sharded by WHOLE circulant blocks, every routing step
 is a block roll and every reduction is a short static-slot reduction —
 no segment ops, no gathers, no logs.
@@ -79,7 +77,7 @@ is bit-identical on any mesh for the same reason the flooding path is.
 
 Reference contrast: the reference decodes one frame per CPU thread with
 cursor scatters (src/qkd_ldpc_algorithm.cpp:56-72,128-139) and has no
-intra-frame parallelism at all (SURVEY.md §2); this axis is TPU-native.
+intra-frame parallelism at all (SURVEY.md §2); this axis is new here.
 """
 
 from __future__ import annotations

@@ -6,19 +6,19 @@ decode, reduce to seven stat scalars.  Sharding the trial-id vector over
 the ``trial`` mesh axis makes every per-trial tensor device-local; XLA
 auto-partitions the whole program (all ops are batch-parallel) and inserts
 a single all-reduce for the final scalar sums — the entire communication
-cost of the sweep, riding ICI.
+cost of the sweep.
 
 Dispatch discipline mirrors the single-chip runner
 (``sim.runner._point_chunk`` / ``_dispatch_point``): sequential trial
 batches are chained on-device with ``lax.scan`` so a whole sweep point
 costs ONE dispatch + ONE scalar fetch regardless of trial count, and
 points can be pipelined (dispatch point k+1 before fetching point k) —
-on a multi-host pod the ~30 ms per-dispatch host latency would otherwise
+on a multi-host run the per-dispatch host latency would otherwise
 return per batch.
 
 Determinism: trial t's keys depend only on (master seed, point index, t)
-via ``fold_in`` — results are bit-identical across 1 chip, 8 chips, or a
-multi-host pod (the reference achieves the thread-count analog of this
+via ``fold_in`` — results are bit-identical across 1 device, 8 devices, or
+several processes (the reference achieves the thread-count analog of this
 with its ``seeds[k] + curr_sim`` scheme, ``src/simulation.cpp:247``).
 """
 
@@ -30,7 +30,7 @@ from typing import Callable
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.sharding import Mesh
+from jax.sharding import Mesh, PartitionSpec as P
 
 from qkd_ldpc_tpu.channel.keys import make_trials_from_ids, num_errors_for
 from qkd_ldpc_tpu.codes.ldpc_code import LDPCCode
@@ -45,6 +45,30 @@ from qkd_ldpc_tpu.sim.stats import (
 )
 
 
+def _trials_per_shard(
+    mesh: Mesh,
+    point_key: jax.Array,
+    n_bits: int,
+    trial_ids: jax.Array,  # [B] uint32
+    num_errors: jax.Array,  # scalar int32
+) -> tuple[jax.Array, jax.Array]:
+    """``make_trials_from_ids`` run shard by shard over the trial axis.
+
+    On the GPU the channel's k-th-select kernel (channel.pallas_select) is
+    a custom call that GSPMD cannot partition: left to it, every device
+    would gather the global [B, N] scores and select every row.  Trials
+    are independent, so each device makes its own shard of them; the
+    streams are unchanged (a trial depends only on its global id).
+    """
+    return jax.shard_map(
+        lambda key, ids, ne: make_trials_from_ids(key, n_bits, ids, ne),
+        mesh=mesh,
+        in_specs=(P(), P(TRIAL_AXIS), P()),
+        out_specs=(P(TRIAL_AXIS), P(TRIAL_AXIS)),
+        check_vma=False,
+    )(point_key, trial_ids, num_errors)
+
+
 def _batch_partials(
     code: LDPCCode,
     point_key: jax.Array,
@@ -53,11 +77,11 @@ def _batch_partials(
     num_errors: jax.Array,  # scalar int32
     n_bits: int,
     opts: DecodeOptions,
-    prng: str = "threefry",
+    mesh: Mesh,
 ) -> dict[str, jax.Array]:
     """One trial batch -> partial-sum dict (traceable, not jitted)."""
-    alice, bob = make_trials_from_ids(
-        point_key, n_bits, trial_ids, num_errors, prng
+    alice, bob = _trials_per_shard(
+        mesh, point_key, n_bits, trial_ids, num_errors
     )
     actual_qber = num_errors.astype(jnp.float32) / n_bits
     res = reconcile(code, alice, bob, actual_qber, opts)
@@ -67,7 +91,7 @@ def _batch_partials(
     )
 
 
-@partial(jax.jit, static_argnames=("n_bits", "n_batches", "opts", "prng"))
+@partial(jax.jit, static_argnames=("n_bits", "n_batches", "opts", "mesh"))
 def _sharded_chunk(
     code: LDPCCode,
     point_key: jax.Array,
@@ -78,7 +102,7 @@ def _sharded_chunk(
     n_bits: int,
     n_batches: int,
     opts: DecodeOptions,
-    prng: str = "threefry",
+    mesh: Mesh,
 ) -> jax.Array:
     """``n_batches`` sequential sharded trial batches scan-chained on device.
 
@@ -95,7 +119,8 @@ def _sharded_chunk(
         trial_ids = trial_lane + offset.astype(jnp.uint32)
         valid = trial_lane < valid_count.astype(jnp.uint32)
         return _batch_partials(
-            code, point_key, trial_ids, valid, num_errors, n_bits, opts, prng
+            code, point_key, trial_ids, valid, num_errors, n_bits, opts,
+            mesh,
         )
 
     from qkd_ldpc_tpu.sim.runner import merge_partials_tree
@@ -134,7 +159,7 @@ def _dispatch_point_sharded(
     batch: int,
     opts: DecodeOptions,
     max_batches_per_dispatch: int,
-    prng: str = "threefry",
+    mesh: Mesh,
 ) -> list:
     """Queue all chunks of one point WITHOUT fetching; returns futures.
 
@@ -156,7 +181,7 @@ def _dispatch_point_sharded(
                 jnp.asarray(n_err, jnp.int32),
                 jnp.asarray(offset, jnp.int32),
                 jnp.asarray(valid, jnp.int32),
-                n_bits, n_batches, opts, prng,
+                n_bits, n_batches, opts, mesh,
             )
         )
         offset += valid
@@ -189,7 +214,6 @@ def make_point_dispatcher(
     opts: DecodeOptions,
     mesh: Mesh,
     max_batches_per_dispatch: int = 64,
-    prng: str = "threefry",
 ):
     """Bind a mesh-replicated code + trial lane once and return
     ``dispatch(point_key, qber, trials) -> (futures, actual_qber)`` — the
@@ -212,7 +236,7 @@ def make_point_dispatcher(
         futures = _dispatch_point_sharded(
             code_dev, jax.device_put(point_key, repl), trial_lane,
             n_err, code.n_vars, trials, gbatch, opts,
-            max_batches_per_dispatch, prng,
+            max_batches_per_dispatch, mesh,
         )
         return futures, n_err / code.n_vars
 
@@ -252,7 +276,7 @@ def run_point_sharded(
 
     futures = _dispatch_point_sharded(
         code_dev, point_key_dev, trial_lane, n_err, code.n_vars,
-        trials, batch, opts, max_batches_per_dispatch,
+        trials, batch, opts, max_batches_per_dispatch, mesh,
     )
     total = _collect(futures)
     if tick is not None:
@@ -301,7 +325,7 @@ def run_sweep_sharded(
         point_key_dev = jax.device_put(jax.random.fold_in(master_key, i), repl)
         futures = _dispatch_point_sharded(
             code_dev, point_key_dev, trial_lane, n_err, code.n_vars,
-            trials, batch, opts, max_batches_per_dispatch,
+            trials, batch, opts, max_batches_per_dispatch, mesh,
         )
         pending.append((futures, n_err / code.n_vars))
         if len(pending) > 1:  # keep one point in flight
@@ -355,7 +379,8 @@ def _node_sharded_chunk(
         lane = jnp.arange(batch, dtype=jnp.uint32)
         trial_ids = lane + offset.astype(jnp.uint32)
         valid = lane < valid_count.astype(jnp.uint32)
-        alice, bob = make_trials_from_ids(point_key, n_bits, trial_ids, num_errors)
+        alice, bob = _trials_per_shard(
+            mesh, point_key, n_bits, trial_ids, num_errors)
         aq = num_errors.astype(jnp.float32) / n_bits
         llr = apriori_llr(bob, aq)
         syn = syndrome_fn(code, alice)

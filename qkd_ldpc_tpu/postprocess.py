@@ -19,7 +19,7 @@ needs the two stages that follow:
 Both use seeded binary TOEPLITZ hashing — the standard 2-universal
 family (Krawczyk; Mauerer et al.): ``T[i, j] = s[i - j + n - 1]`` from a
 shared random seed sequence of n + k - 1 bits, so the classical channel
-carries only the seed.  TPU-natively the GF(2) matvec runs on the MXU:
+carries only the seed.  The GF(2) matvec runs as a matrix product:
 bf16 0/1 operands, f32 accumulation (exact — row sums are bounded by n
 << 2^24), parity taken mod 2.
 
@@ -33,14 +33,13 @@ tests/test_postprocess.py):
 - **blocked** (round 4) — exploit that T with SQUARE [c, c] blocks is
   block-Toeplitz: only nI + nJ - 1 distinct blocks exist.  Build them
   once (int8, vectorized shear tiling) and accumulate out_block[I] +=
-  D[I - J] @ x_block[J] with one aligned contiguous D-slice + MXU
+  D[I - J] @ x_block[J] with one aligned contiguous D-slice + one
   matmul per J.  int8 operands with int32 accumulation are exact (row
   sums <= n, far below 2^31), so the parity is exact.  Peak memory is
   O((n/c + k/c) * c^2 + k*B) regardless of frame size; this is what
   lets amplification run at the frame sizes the decoder itself serves
-  (benchmarks/frame_scale.py) — measured 5.5x the round-3 two-level
-  tile stream, which built every tile from scratch
-  (benchmarks/amplify.md).
+  (benchmarks/frame_scale.py); the round-3 two-level tile stream it
+  replaced built every tile from scratch.
 """
 
 from __future__ import annotations
@@ -61,7 +60,7 @@ def toeplitz_matrix(seed_key: jax.Array, n_in: int, n_out: int) -> jax.Array:
     n_out - 1 shifts each row's phase by one, so with v = flip(s) + one
     junk element, columns [n_out - 1, n_out - 1 + n_in) are exactly
     T[i, j] = s[i - j + n_in - 1].  The fancy-indexing formulation is a
-    [n_out * n_in]-descriptor gather — ~10x slower on TPU.
+    [n_out * n_in]-element gather, far slower.
     """
     if n_out < 1 or n_in < 1:
         raise ValueError("hash dimensions must be >= 1")
@@ -145,30 +144,26 @@ def _hash_apply_blocked(
 
     where each scan step's LHS is a CONTIGUOUS [nI*c, c] row-slice of
     the stack (the nI diagonals that pair with x_block[J], e = I - J +
-    nJ - 1 being consecutive in I) — an aligned dynamic_slice, one MXU
+    nJ - 1 being consecutive in I) — an aligned dynamic_slice, one
     matmul, one full-width add.  int8 operands with int32 accumulation
     are exact (row sums <= n_in << 2^31); parity mod 2 at the end.
 
-    Round 4 (measured 5.5x over the round-3 two-level scan at the 262k
-    production shape: 166 vs 916 ms/32-frame call at c=256, interleaved
-    — benchmarks/amplify.md): the round-3 path built EVERY [bo, bi] tile
-    from scratch (write + read ~2 passes over n_out*n_in bf16 material,
-    plus an unaligned lane-offset slice per tile); here tile material is
-    nD*c*c int8 built once, and the dominant traffic is the D-stack
-    re-read per scan step (~nJ * nI*c*c int8 — at 262k, 33 GB vs the
-    round-3 ~130+ GB with relayouts).
+    The round-3 path built EVERY [bo, bi] tile from scratch (write +
+    read ~2 passes over n_out*n_in bf16 material, plus an unaligned
+    offset slice per tile); here tile material is nD*c*c int8 built
+    once, and the dominant traffic is the D-stack re-read per scan step
+    (~nJ * nI*c*c int8 — at 262k, 33 GB vs the round-3 ~130+ GB).  Not
+    yet timed on the GPU.
 
     Shear tiling (contiguous copies only, no gathers): broadcasting a
     period-(2c) vector into rows of length 2c - 1 shifts each row's
     phase by one.  With v = [flip(local), 0] rotated left by c - 1, the
     [c, c] Toeplitz block D[e][a, b] = local_e[a - b + c - 1] lands in
-    columns [0, c) — a LANE-ALIGNED slice (the round-3 tile sliced at
-    column bo - 1, an unaligned lane offset forcing a relayout per
-    tile).  A gather formulation of the same tile was ~100x slower on
-    TPU (4M single-element descriptors); XLA's conv_general_dilated on
-    huge 1-D kernels is equally unusable (~7.7 s at 262k), and the FFT
-    formulation cannot run at all — this backend implements no complex
-    dtypes (benchmarks/amplify.md).
+    columns [0, c) — an aligned slice (the round-3 tile sliced at column
+    bo - 1, an unaligned offset forcing a relayout per tile).  Gather
+    (4M single-element reads per tile), 1-D conv_general_dilated and FFT
+    formulations of the same product were rejected earlier; none has
+    been timed on the GPU.
     """
     B = bits.shape[0]
     nI = -(-n_out // c)
@@ -287,10 +282,8 @@ _BLOCKED_KERNELS = {
     "blocked-diag": _hash_apply_blocked_diag,
 }
 # Which streaming formulation "auto" resolves to.  All three are
-# bit-identical; the choice is purely a bandwidth question, decided by
-# the interleaved hardware A/B (benchmarks/amplify_lab.py, recorded in
-# benchmarks/amplify.md).  "blocked" is the round-4 measured default
-# (166 ms/32-frame call at 262k, c=256); flip after the lab drains.
+# bit-identical; the choice is purely a bandwidth question, not yet
+# measured on the GPU (ROADMAP.md, Queue 1).
 _BLOCKED_DEFAULT = "blocked"
 
 # Above this many T entries the dense path materializes an unreasonable
@@ -302,9 +295,7 @@ def toeplitz_hash(
     bits: jax.Array,
     seed_key: jax.Array,
     n_out: int,
-    block_out: int = 256,  # measured optimum at the 262k production
-    # shape (166 ms vs 199 at c=512, benchmarks/amplify.md); output is
-    # bit-identical for any block size
+    block_out: int = 256,  # output is bit-identical for any block size
     method: str = "auto",  # "auto" | "dense" | "blocked" | "blocked-xor"
     #                        | "blocked-diag"
 ) -> jax.Array:

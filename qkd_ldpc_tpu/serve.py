@@ -12,7 +12,7 @@ long-lived object with a serving-shaped contract:
   stream of ragged request sizes never recompiles.  QBER is a traced
   argument — channel-estimate updates don't recompile either.
 - **Pipelined chunks** (round 3): all chunks of a request are dispatched
-  before any is fetched — the ~30 ms dispatch/fetch host latency of
+  before any is fetched — the dispatch/fetch host latency of
   chunk k+1 hides under chunk k's device compute, the same discipline
   every sim path uses (sim/runner.py).
 - **Host-friendly IO**: NumPy in, NumPy out.
@@ -130,7 +130,7 @@ class Reconciler:
 
     ``lanes`` is the compiled batch width; requests of any size are
     padded/chunked to it.  Latency/throughput trade-off: small lanes for
-    low latency, large for throughput (measured: benchmarks/serving.md).
+    low latency, large for throughput (not measured on the card yet).
     """
 
     def __init__(
@@ -161,7 +161,7 @@ class Reconciler:
         self.adapter = adapter
         self.shared_seed = shared_seed
         # Chunks allowed in flight before the oldest is fetched: enough to
-        # hide the ~30 ms dispatch/fetch host latency under device
+        # hide the dispatch/fetch host latency under device
         # compute, small enough that device memory stays constant in the
         # request size.
         self.max_inflight_chunks = 4

@@ -33,7 +33,7 @@ On the plateau (low QBER) every frame converges in ~the same few
 iterations and the refill's keygen overhead loses — use the plain runner
 there (Config.continuation_qber selects the crossover per sweep).  Deep
 in the waterfall (FER -> 1) almost every trial runs to the cap anyway and
-there is nothing to reclaim.  Measured numbers: benchmarks/waterfall.md.
+there is nothing to reclaim.  The reasoning: benchmarks/waterfall.md.
 """
 
 from __future__ import annotations
@@ -62,7 +62,6 @@ def _continuation_core(
     segment: int,
     refill_min: int,
     opts: DecodeOptions,
-    prng: str = "threefry",
 ) -> jax.Array:
     """Trials [trial_offset, trial_offset + trials) of P consecutive
     sweep points with CROSS-POINT lane continuation; returns the stacked
@@ -102,8 +101,8 @@ def _continuation_core(
     #   stage = (llr_s [N,S], syn_s [M,S], alice_s [N,S], base, pos, sp)
     #     staged fresh trials OF POINT sp: slot i holds trial id base+i;
     #     slots pos..S-1 are unconsumed.  Key generation runs once per S
-    #     trials (a ~ms-latency op: per-event generation measured
-    #     ~1.5 ms regardless of size); refills then consume contiguous
+    #     trials (generation has a fixed per-event cost regardless of
+    #     size); refills then consume contiguous
     #     K-slices — two cheap dynamic-slice + gather blends.
     #   next_id: ids consumed of the stage's CURRENT point
     #   acc: seven [P] per-point accumulators
@@ -126,7 +125,7 @@ def _continuation_core(
         # most one block per point, amortized across the whole point).
         ne = num_errors[sp]
         a_new, b_new = make_trials_from_ids(
-            jnp.take(point_keys, sp, axis=0), N, ids, ne, prng
+            jnp.take(point_keys, sp, axis=0), N, ids, ne
         )
         aq = ne.astype(jnp.float32) / N
         stage = (
@@ -144,8 +143,8 @@ def _continuation_core(
 
         Blend via a sentinel GATHER over the lane axis (inv maps lane ->
         its slot in the K new trials, or K for untouched lanes): a
-        dynamic-index column *scatter* of the big tensors is far slower
-        on TPU (measured ~10 ms/event).  The refill predicate guarantees
+        dynamic-index column *scatter* of the big tensors was far slower
+        where first measured.  The refill predicate guarantees
         >= K empty lanes, so ``nonzero(size=K)`` never duplicates a lane.
         """
         (tot, Lr, llr, syn, syn_sign, alice, z, age, done, live, fresh,
@@ -296,7 +295,7 @@ def _continuation_core(
 
 
 @partial(jax.jit,
-         static_argnames=("batch", "segment", "refill_min", "opts", "prng"))
+         static_argnames=("batch", "segment", "refill_min", "opts"))
 def _continuation_point(
     code: LDPCCode,
     point_key: jax.Array,
@@ -306,17 +305,16 @@ def _continuation_point(
     segment: int,
     refill_min: int,
     opts: DecodeOptions,
-    prng: str = "threefry",
 ) -> jax.Array:
     """Single-device continuation point (stacked [7] int32 stats)."""
     return _continuation_sweep(
         code, point_key[None], num_errors[None], trials,
-        batch, segment, refill_min, opts, prng,
+        batch, segment, refill_min, opts,
     )[:, 0]
 
 
 @partial(jax.jit,
-         static_argnames=("batch", "segment", "refill_min", "opts", "prng"))
+         static_argnames=("batch", "segment", "refill_min", "opts"))
 def _continuation_sweep(
     code: LDPCCode,
     point_keys: jax.Array,  # [P, ...] PRNG keys
@@ -326,17 +324,16 @@ def _continuation_sweep(
     segment: int,
     refill_min: int,
     opts: DecodeOptions,
-    prng: str = "threefry",
 ) -> jax.Array:
     """Single-device cross-point continuation sweep ([7, P] stats)."""
     return _continuation_core(
         code, point_keys, num_errors, trials, jnp.asarray(0, jnp.int32),
-        batch, segment, refill_min, opts, prng,
+        batch, segment, refill_min, opts,
     )
 
 
 @partial(jax.jit, static_argnames=("batch", "segment", "refill_min", "opts",
-                                   "mesh", "prng"))
+                                   "mesh"))
 def _continuation_sweep_mesh(
     code: LDPCCode,
     point_keys: jax.Array,  # [P, ...] PRNG keys
@@ -347,7 +344,6 @@ def _continuation_sweep_mesh(
     refill_min: int,
     opts: DecodeOptions,
     mesh,
-    prng: str = "threefry",
 ) -> jax.Array:
     """Cross-point continuation sweep sharded over the ``trial`` axis.
 
@@ -372,7 +368,7 @@ def _continuation_sweep_mesh(
         n_local = q + (s < r).astype(jnp.int32)
         stacked = _continuation_core(
             code, point_keys, num_errors, n_local, lo,
-            batch, segment, refill_min, opts, prng,
+            batch, segment, refill_min, opts,
         )
         sums = jax.lax.psum(stacked[:5], TRIAL_AXIS)
         mn = jax.lax.pmin(stacked[5], TRIAL_AXIS)
@@ -412,7 +408,6 @@ def dispatch_sweep_continuation(
     mesh=None,
     segment: int = 4,
     refill_frac: float = 0.25,
-    prng: str = "threefry",
 ) -> tuple[list[list], list[float]]:
     """Dispatch P consecutive waterfall points as ONE cross-point
     continuation program (drained lanes of point p host point p+1's
@@ -436,11 +431,11 @@ def dispatch_sweep_continuation(
     tr = jnp.asarray(trials, jnp.int32)
     if mesh is not None:
         future = _continuation_sweep_mesh(
-            code, keys, ne, tr, batch, segment, refill_min, opts, mesh, prng
+            code, keys, ne, tr, batch, segment, refill_min, opts, mesh
         )
     else:
         future = _continuation_sweep(
-            code, keys, ne, tr, batch, segment, refill_min, opts, prng
+            code, keys, ne, tr, batch, segment, refill_min, opts
         )
     holder = {"future": future, "host": None}
     futures = [[_SweepSlice(holder, i)] for i in range(len(qbers))]

@@ -72,8 +72,8 @@ def interactive_simulation(
 
         flags = TraceFlags.from_config(cfg)
         if flags.any:
-            # Traced decode runs on the host f64 oracle — the compiled TPU
-            # path never contains trace prints (SURVEY.md §5).
+            # Traced decode runs on the host f64 oracle — the compiled
+            # device path never contains trace prints (SURVEY.md §5).
             ores, okeys = traced_reconcile(
                 code,
                 np.asarray(alice[0]),

@@ -11,7 +11,7 @@ three config booleans (SURVEY.md §5 "Tracing / profiling"):
 - ``TRACE_SUM_PRODUCT_LLR`` — running max |LLR| over both message
   matrices (``:115-118,150-155,160-163``)
 
-On TPU, trace prints must never enter the compiled hot path, so traced
+Trace prints must never enter the compiled hot path, so traced
 decodes run on the host float64 oracle (``decoder.oracle``) instead — the
 same equations in the reference's own division form, with hook points for
 every quantity above.  This module formats those hooks into the
@@ -137,7 +137,7 @@ def traced_reconcile(
 ):
     """Single-frame protocol step with reference-style console traces.
 
-    Runs on the host f64 oracle (never the compiled TPU path); returns
+    Runs on the host f64 oracle (never the compiled device path); returns
     ``(OracleResult, keys_match)``.
     """
     tracer = ConsoleTracer(flags, print_fn)

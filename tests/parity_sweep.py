@@ -1,6 +1,6 @@
 """Full FER/iteration parity sweep vs BASELINE.md (manual tool, not pytest).
 
-Run on any backend (TPU for speed): ``python tests/parity_sweep.py``.
+Run on any backend (the GPU for speed): ``python tests/parity_sweep.py``.
 Produces the PARITY.md table.  Uses the reference alist code when mounted;
 otherwise a generated same-profile code (FER curve is then expected to be
 close but not identical — it is a different random code of the same
@@ -48,7 +48,7 @@ def main(trials: int = 1000, batch: int = 250, generated: bool = False,
         code = make_qc_code(z=512, nb=20, mb=10, dv=3, seed=666)
         print(f"QC code {code}")
     elif which == "qc-ref":
-        # Round-4 (VERDICT r3 item 7): the QC family at the reference's
+        # Round 4: the QC family at the reference's
         # own rate profile — z=128, nb=80, mb=41 gives N=10240, M=5248,
         # R=0.4875 with mixed degree-5/6 base rows (the closest QC point
         # to the reference alist's R=0.489, 666x5/4565x6 histogram;

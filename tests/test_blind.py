@@ -174,7 +174,7 @@ def test_blind_session_endpoint_api(mother):
 
 
 def test_blind_secure_chain(mother):
-    """Round-4 VERDICT item 5: one blind session yields verified,
+    """One blind session yields verified,
     amplified key material with a per-frame ledger including reveals —
     the adaptive leakage finally reaches the stage that consumes it."""
     from qkd_ldpc_tpu.decoder.blind import BlindSession

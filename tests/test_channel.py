@@ -140,87 +140,122 @@ def test_tie_break_changes_only_tie_frames():
     np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 
-def test_pallas_threshold_matches_xla():
-    """The Pallas k-th-smallest kernel (TPU fast path of the exact-weight
-    channel) must return bit-identical thresholds to the XLA search —
-    including threshold ties, k=1, k=N, and non-lane-multiple N."""
-    import numpy as np
-
-    from qkd_ldpc_tpu.channel.keys import _kth_smallest
-    from qkd_ldpc_tpu.channel.pallas_select import kth_smallest_pallas
-
+def _kth_cases():
+    """(name, scores) cases for the k-th-smallest kernel: random rows at
+    several widths (N a power of two or not), forced threshold ties,
+    extreme values."""
     rng = np.random.default_rng(0)
-    for B, N in [(4, 256), (3, 100), (8, 1000)]:
-        scores = jnp.asarray(rng.integers(0, 2**32, (B, N), dtype=np.uint32))
-        for k in (1, 2, N // 2, N - 1, N):
-            ref = _kth_smallest(scores, jnp.asarray(k, jnp.int32))
-            out = kth_smallest_pallas(scores, jnp.asarray(k, jnp.int32),
-                                      interpret=True)
-            np.testing.assert_array_equal(np.asarray(out), np.asarray(ref))
-
-    # forced duplicates (quantized scores): ties at the threshold value
-    scores = jnp.asarray(
-        (rng.integers(0, 16, (4, 512), dtype=np.uint32) << 28)
-    )
-    for k in (1, 7, 200, 511):
-        ref = _kth_smallest(scores, jnp.asarray(k, jnp.int32))
-        out = kth_smallest_pallas(scores, jnp.asarray(k, jnp.int32),
-                                  interpret=True)
-        np.testing.assert_array_equal(np.asarray(out), np.asarray(ref))
-
-    # extreme values (0 and 0xFFFFFFFF present)
+    cases = [
+        (f"random-{B}x{N}",
+         rng.integers(0, 2**32, (B, N), dtype=np.uint32))
+        for B, N in [(4, 256), (3, 100), (8, 1000), (2, 1)]
+    ]
+    cases.append(("ties", rng.integers(0, 16, (4, 512), dtype=np.uint32) << 28))
     s = np.full((2, 128), 0xFFFFFFFF, np.uint32)
     s[0, 5] = 0
     s[1, :3] = [7, 7, 9]
-    scores = jnp.asarray(s)
-    for k in (1, 2, 128):
-        ref = _kth_smallest(scores, jnp.asarray(k, jnp.int32))
-        out = kth_smallest_pallas(scores, jnp.asarray(k, jnp.int32),
-                                  interpret=True)
+    cases.append(("extremes", s))
+    return cases
+
+
+@pytest.mark.parametrize("name,scores", _kth_cases(),
+                         ids=[c[0] for c in _kth_cases()])
+def test_pallas_threshold_matches_xla(name, scores):
+    """The Pallas-Triton k-th-smallest kernel (interpret mode here; the
+    compiled card run is tests/test_gpu.py) returns bit-identical
+    thresholds to the XLA search for k in {1, 2, N/2, N-1, N}."""
+    from qkd_ldpc_tpu.channel.keys import _kth_smallest
+    from qkd_ldpc_tpu.channel.pallas_select import kth_smallest_kernel
+
+    scores = jnp.asarray(scores)
+    n = scores.shape[1]
+    for k in sorted({1, 2, n // 2, n - 1, n} - {0}):
+        kk = jnp.asarray(k, jnp.int32)
+        ref = _kth_smallest(scores, kk)
+        out = kth_smallest_kernel(scores, kk, interpret=True)
+        assert out.shape == ref.shape == (scores.shape[0], 1)
         np.testing.assert_array_equal(np.asarray(out), np.asarray(ref))
+
+
+def test_kth_kernel_per_row_k():
+    """A per-row k vector (the tie-completion path passes one) selects
+    each row's own threshold."""
+    from qkd_ldpc_tpu.channel.keys import _kth_smallest
+    from qkd_ldpc_tpu.channel.pallas_select import kth_smallest_kernel
+
+    rng = np.random.default_rng(1)
+    scores = jnp.asarray(rng.integers(0, 2**32, (5, 300), dtype=np.uint32))
+    k = jnp.asarray([1, 17, 150, 299, 300], jnp.int32)
+    np.testing.assert_array_equal(
+        np.asarray(kth_smallest_kernel(scores, k, interpret=True)),
+        np.asarray(_kth_smallest(scores, k)),
+    )
+
+
+def test_kth_kernel_row_padding():
+    """Rows are padded to a power-of-two block; pad columns must read as
+    the maximal value whatever the block holds past N, so k = N still
+    returns the row maximum."""
+    from qkd_ldpc_tpu.channel.pallas_select import kth_smallest_kernel
+
+    s = np.arange(1, 601, dtype=np.uint32)[None, :] * 1000  # N=600 -> 1024
+    out = kth_smallest_kernel(jnp.asarray(s), jnp.asarray(600, jnp.int32),
+                              interpret=True)
+    assert int(out[0, 0]) == 600 * 1000
+
+
+def test_kth_threshold_dispatch():
+    """One explicit size/platform rule picks the kernel: [B, N] rows on
+    the GPU that fit one program; the XLA search on the CPU, for 1-D
+    scores, and for rows wider than the kernel block (262k frames)."""
+    from qkd_ldpc_tpu.channel.keys import kth_threshold_impl
+    from qkd_ldpc_tpu.channel.pallas_select import MAX_KERNEL_COLS
+
+    assert kth_threshold_impl((512, 10240), 0, "gpu") == "kernel"
+    assert kth_threshold_impl((512, 10240), 1, "gpu") == "kernel"
+    assert kth_threshold_impl((512, MAX_KERNEL_COLS), 0, "gpu") == "kernel"
+    assert kth_threshold_impl((8, MAX_KERNEL_COLS + 1), 0, "gpu") == "xla"
+    assert kth_threshold_impl((8, 262144), 0, "gpu") == "xla"
+    assert kth_threshold_impl((10240,), 0, "gpu") == "xla"
+    assert kth_threshold_impl((512, 10240), 0, "cpu") == "xla"
+    assert kth_threshold_impl((512, 10240), 0) == "xla"  # this suite: CPU
+
+
+def test_kth_kernel_rejects_wide_rows():
+    from qkd_ldpc_tpu.channel.pallas_select import (
+        MAX_KERNEL_COLS,
+        kth_smallest_kernel,
+    )
+
+    with pytest.raises(ValueError, match="exceeds"):
+        kth_smallest_kernel(
+            jnp.zeros((1, MAX_KERNEL_COLS + 1), jnp.uint32),
+            jnp.asarray(1, jnp.int32),
+        )
 
 
 def test_master_key_impl_validation():
     from qkd_ldpc_tpu.channel import master_key
 
-    k1 = master_key(777)
-    k2 = master_key(777, "pallas")
-    # Both contracts share the threefry key-derivation tree.
     np.testing.assert_array_equal(
-        np.asarray(jax.random.key_data(k1)), np.asarray(jax.random.key_data(k2))
+        np.asarray(jax.random.key_data(master_key(777))),
+        np.asarray(jax.random.key_data(jax.random.PRNGKey(777))),
     )
-    import pytest
-
-    with pytest.raises(ValueError, match="prng impl"):
-        master_key(777, "rbg")
+    for impl in ("rbg", "pallas"):
+        with pytest.raises(ValueError, match="prng impl"):
+            master_key(777, impl)
 
 
 def test_unknown_prng_contract_rejected():
-    # A typo'd contract name must raise at the lowest-level entry, not
-    # silently fall back to the threefry stream (the caller would
-    # believe they measured contract v2 while running v1).
+    # Anything but the threefry stream must raise at the lowest-level
+    # entry, not silently fall back to it (the caller would believe they
+    # measured another stream while running threefry).
     from qkd_ldpc_tpu.channel import make_trials_from_ids
 
     pk = derive_point_key(777, 0)
     ids = jnp.arange(4, dtype=jnp.uint32)
-    with pytest.raises(ValueError, match="Unknown prng contract"):
-        make_trials_from_ids(
-            pk, 64, ids, jnp.asarray(3, jnp.int32), prng="Pallas"
-        )
-
-
-def test_pallas_prng_falls_back_off_tpu():
-    # Contract v2 only exists on TPU; elsewhere prng="pallas" silently
-    # produces the v1 threefry stream (documented fallback).
-    from qkd_ldpc_tpu.channel import make_trials_from_ids
-
-    pk = derive_point_key(777, 0)
-    ids = jnp.arange(16, dtype=jnp.uint32)
-    a1, b1 = make_trials_from_ids(pk, 256, ids, jnp.asarray(12, jnp.int32))
-    a2, b2 = make_trials_from_ids(
-        pk, 256, ids, jnp.asarray(12, jnp.int32), prng="pallas"
-    )
-    if jax.default_backend() == "tpu":  # pragma: no cover - CPU suite
-        return
-    np.testing.assert_array_equal(np.asarray(a1), np.asarray(a2))
-    np.testing.assert_array_equal(np.asarray(b1), np.asarray(b2))
+    for prng in ("Pallas", "pallas"):
+        with pytest.raises(ValueError, match="Unknown prng contract"):
+            make_trials_from_ids(
+                pk, 64, ids, jnp.asarray(3, jnp.int32), prng=prng
+            )

@@ -101,3 +101,25 @@ def test_extension_validation():
             r_qber_parameters=(RQBERParams(0.5, 0.01, 0.1, 0.01),),
             decoder="bogus",
         ).validate()
+
+
+@pytest.mark.parametrize("key,value", [("backend", "pallas"),
+                                       ("prng", "pallas"),
+                                       ("backend", "cuda"),
+                                       ("prng", "rbg")])
+def test_removed_kernel_options_raise(key, value):
+    """Configs asking for the removed Pallas kernels ("backend": "pallas",
+    "prng": "pallas") or any other unknown choice fail loudly; nothing
+    falls back to the XLA decoder or the threefry stream silently."""
+    with pytest.raises(ValueError, match="Unsupported"):
+        config_from_dict(_ref_style_dict(**{key: value}))
+
+
+def test_backend_and_prng_naming_what_runs_accepted():
+    """"backend": "auto"/"xla" and "prng": "threefry" name what always
+    runs, so older configs that spell them out still load."""
+    for extra in ({"backend": "auto"}, {"backend": "xla"},
+                  {"prng": "threefry"}):
+        assert config_from_dict(_ref_style_dict(**extra)).trials_number == 5000
+    assert not hasattr(Config(), "backend")
+    assert not hasattr(Config(), "prng")

@@ -138,7 +138,7 @@ def test_two_process_cli_writes_one_artifact_set(tmp_path):
             **os.environ, "JAX_PLATFORMS": "cpu",
             "XLA_FLAGS": "--xla_force_host_platform_device_count=4",
             "PYTHONPATH": str(Path(__file__).resolve().parent.parent),
-            "QKD_LDPC_CACHE_DIR": "",
+            "QKD_LDPC_NO_COMPILE_CACHE": "1",
         }
         procs = [
             subprocess.Popen(

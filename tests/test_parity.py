@@ -10,7 +10,7 @@ Two tiers:
   statistical parity guard.  Exact fixed-seed pins live in
   tests/test_regression.py.
 
-tests/parity_sweep.py runs all 15 points; PARITY.md records the TPU runs.
+tests/parity_sweep.py runs all 15 points; PARITY.md records the full runs.
 """
 
 import os

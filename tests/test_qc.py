@@ -1,10 +1,10 @@
 """Quasi-cyclic code family: construction invariants and the roll-based
 routing's bit-identity with the general gather path.
 
-The QC family is the round-3 performance lever (VERDICT item 1): rolls
-replace the descriptor-bound routing gathers the roofline isolated.
-Correctness story here; throughput is measured on hardware
-(benchmarks/qc.md).
+Rolls can replace the general routing gathers for QC codes
+(``DecodeOptions.routing="roll"``, decoder/qc_routing).
+Correctness story here; throughput is measured on the card
+(benchmarks/qc.py).
 """
 
 import dataclasses
@@ -154,10 +154,9 @@ def test_qc_alist_round_trip(tmp_path, qc_code):
 
 
 def test_qc_sidecar_round_trip(tmp_path, qc_code):
-    """write -> load reconstructs the QC roll layout exactly (round-4
-    VERDICT item 3: without this the fastest operating point existed
-    only for codes constructed in-process), with the fingerprint — a
-    graph hash — unchanged."""
+    """write -> load reconstructs the QC roll layout exactly (without
+    this, roll routing existed only for codes constructed in-process),
+    with the fingerprint — a graph hash — unchanged."""
     from qkd_ldpc_tpu.codes import read_alist
     from qkd_ldpc_tpu.codes.alist import qc_sidecar_path
 
@@ -170,7 +169,7 @@ def test_qc_sidecar_round_trip(tmp_path, qc_code):
     assert back.fingerprint == qc_code.fingerprint
 
     # The reloaded code decodes with roll routing, bit-identically to
-    # its own gather path (DecodeOptions 'auto' picks roll on TPU).
+    # its own gather path (routing='auto' follows the platform's plan).
     _, llr, syn = _trial(back, 0.02, batch=4, seed=5)
     roll = decode(back, llr, syn,
                   DecodeOptions(max_iterations=25, routing="roll"))
@@ -251,7 +250,7 @@ def test_qc_layout_survives_device_put(qc_code):
 
 
 def test_continuation_with_roll_routing(qc_code):
-    """Continuation batching composes with roll routing (the TPU
+    """Continuation batching composes with roll routing (the
     production pairing: waterfall points on a QC code): statistics must
     equal the plain runner's with BOTH routings, bit-for-bit."""
     from qkd_ldpc_tpu.sim.continuation import run_point_continuation
@@ -303,43 +302,25 @@ def test_qc_construction_fuzz():
                                       np.asarray(gather.iterations))
 
 
-def test_rot_lowerings_agree():
-    """The two _rot lowerings (slice-concat vs static take) are the same
-    permutation — the trace-time backend branch can never change results
-    (ADVICE r3: the production slice lowering must be exercised by CPU
-    tests too, not only by TPU parity sweeps)."""
+@pytest.mark.parametrize("s", [0, 1, 5, 31])
+def test_rot_matches_np_roll(s):
+    """_rot is the circulant permutation row r <- row (r + s) mod z."""
     from qkd_ldpc_tpu.decoder import qc_routing
 
     rng = np.random.default_rng(0)
     block = jnp.asarray(rng.normal(size=(32, 8)), jnp.float32)
-    for s in (0, 1, 5, 31):
-        outs = {}
-        for mode in ("slices", "take"):
-            qc_routing._ROT_LOWERING = mode
-            try:
-                outs[mode] = np.asarray(jax.jit(
-                    lambda b: qc_routing._rot(b, s)
-                )(block))
-            finally:
-                qc_routing._ROT_LOWERING = "auto"
-        np.testing.assert_array_equal(outs["slices"], outs["take"])
+    out = jax.jit(lambda b: qc_routing._rot(b, s))(block)
+    np.testing.assert_array_equal(
+        np.asarray(out), np.roll(np.asarray(block), -s, axis=0))
 
 
-def test_roll_decode_slice_lowering_matches_gather(qc_code):
-    """Full decode with the slice-concat roll lowering forced (the TPU
-    production variant) matches the gather path bit-for-bit on CPU."""
-    from qkd_ldpc_tpu.decoder import qc_routing
+def test_routing_choice(qc_code):
+    """Rolls run only under routing="roll"; "auto" and "gather" take the
+    general gathers (faster on the H100 at the z=512 flagship)."""
+    from qkd_ldpc_tpu.decoder.bp import _DecodeCore
 
-    _, llr, syn = _trial(qc_code, 0.02, batch=4, seed=11)
-    opts_roll = DecodeOptions(max_iterations=25, routing="roll")
-    opts_gather = DecodeOptions(max_iterations=25, routing="gather")
-    qc_routing._ROT_LOWERING = "slices"
-    try:
-        roll = decode(qc_code, llr, syn, opts_roll)
-    finally:
-        qc_routing._ROT_LOWERING = "auto"
-    gather = decode(qc_code, llr, syn, opts_gather)
-    np.testing.assert_array_equal(np.asarray(roll.bits),
-                                  np.asarray(gather.bits))
-    np.testing.assert_array_equal(np.asarray(roll.iterations),
-                                  np.asarray(gather.iterations))
+    for routing, rolls in (("auto", False), ("gather", False),
+                           ("roll", True)):
+        core = _DecodeCore(qc_code, DecodeOptions(routing=routing),
+                           jnp.float32, 4)
+        assert (core.qc is not None) == rolls, routing

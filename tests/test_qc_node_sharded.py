@@ -1,6 +1,6 @@
 """QC-structured node-sharded decoding vs the single-chip decoder.
 
-Round 4 (VERDICT r3 item 2): sharding a quasi-cyclic code by whole
+Round 4: sharding a quasi-cyclic code by whole
 circulant blocks makes every per-shard routing step a block roll and
 every check reduction a short static-slot reduction — no segment sums,
 no gathers, no log formulation (parallel.qc_node_sharded).  These tests
@@ -156,7 +156,7 @@ def test_general_node_sharded_rejects_layered_schedule(medium_code):
 
 
 # ---------------------------------------------------------------------------
-# Layered schedule x QC node sharding (round 5, VERDICT r4 item 4)
+# Layered schedule x QC node sharding (round 5)
 
 
 @pytest.mark.parametrize("n_node", [2, 4, 8])

@@ -1,6 +1,6 @@
 """Fixed-seed decoder regression pins (no reference mount required).
 
-The statistical parity evidence lives in PARITY.md (TPU, 5000
+The statistical parity evidence lives in PARITY.md (5000
 trials/point) and tests/test_parity.py (needs the reference alist).  A
 clone without /root/reference still needs a cheap guard that catches
 decoder drift: these tests pin the EXACT per-point iteration statistics

@@ -1,11 +1,12 @@
 """Sharded-sweep tests on a virtual 8-device CPU mesh.
 
-This is the TPU-world answer to "test multi-node without a cluster"
+This is the answer to "test multi-device without a cluster"
 (SURVEY.md §4): ``xla_force_host_platform_device_count=8`` fakes 8 devices
 (set in conftest.py before jax import).
 """
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
@@ -87,14 +88,47 @@ def test_sharded_point_single_dispatch(medium_code):
     futures = _dispatch_point_sharded(
         code_dev, key, lane, n_err=3, n_bits=medium_code.n_vars,
         trials=160, batch=16, opts=OPTS, max_batches_per_dispatch=64,
+        mesh=mesh,
     )
     assert len(futures) == 1
     # Respect the dispatch cap: 10 batches at cap 4 -> ceil(10/4) = 3.
     futures = _dispatch_point_sharded(
         code_dev, key, lane, n_err=3, n_bits=medium_code.n_vars,
         trials=160, batch=16, opts=OPTS, max_batches_per_dispatch=4,
+        mesh=mesh,
     )
     assert len(futures) == 3
+
+
+def test_trials_generated_per_shard(monkeypatch):
+    """The sharded sweep makes each device's trials on that device: the
+    k-th select (a custom call on the GPU, which GSPMD cannot partition)
+    sees one shard's rows, and the trials equal the unsharded ones."""
+    from qkd_ldpc_tpu.channel import keys
+    from qkd_ldpc_tpu.parallel.sweep import _trials_per_shard
+
+    mesh = make_trial_mesh()
+    n_dev = mesh.devices.size
+    seen = []
+    real = keys.kth_smallest
+
+    def spy(scores, k):
+        seen.append(scores.shape)
+        return real(scores, k)
+
+    monkeypatch.setattr(keys, "kth_smallest", spy)
+    key = jax.random.PRNGKey(9)
+    ids = jnp.arange(4 * n_dev, dtype=jnp.uint32) + 100
+    ne = jnp.asarray(5, jnp.int32)
+    fn = jax.jit(lambda k, i, e: _trials_per_shard(mesh, k, 64, i, e))
+    alice, bob = fn(key, ids, ne)
+    assert seen and all(s == (4, 64) for s in seen)
+    hlo = fn.lower(key, ids, ne).compile().as_text()
+    assert "all-gather" not in hlo
+    monkeypatch.setattr(keys, "kth_smallest", real)
+    a_ref, b_ref = keys.make_trials_from_ids(key, 64, ids, ne)
+    np.testing.assert_array_equal(np.asarray(alice), np.asarray(a_ref))
+    np.testing.assert_array_equal(np.asarray(bob), np.asarray(b_ref))
 
 
 def test_sharded_sweep_pipelined_matches_per_point(medium_code):
